@@ -2,8 +2,8 @@
 
 The runnable counterpart of the reference's notebooks/example.md
 (/root/reference/notebooks/example.md), sized to finish in a few minutes on
-one CPU core; on a TPU host the same script runs unmodified and simply
-picks the Pallas kernel.  Exercised by the slow test lane
+one CPU core; on a GPU host the same script runs unmodified and simply
+picks the triton kernel.  Exercised by the slow test lane
 (tests/test_example.py), so every step below is continuously verified.
 
 What it shows, in order:

@@ -1,16 +1,16 @@
-"""phlash_tpu — TPU-native Bayesian inference of ancestral population size.
+"""phlash_tpu — Bayesian inference of ancestral population size in JAX.
 
-A ground-up, TPU-first framework with the capability surface of
+A framework with the capability surface of
 jthlab/phlash (Bayesian PSMC via SVGD over a pair-coalescent HMM).  The
 public API matches the reference package
-(/root/reference/src/phlash/__init__.py:18-24): `fit`, `contig`, `psmc`,
+(upstream phlash/__init__.py:18-24): `fit`, `contig`, `psmc`,
 `DemographicModel`, `SizeHistory`, `plot_posterior`.
 
-TPU-first defaults: float32 end-to-end on device (no global x64 — the
-reference's x64 default would be emulated and slow on TPU; long
-log-likelihood sums use compensated accumulation instead), XLA never
-preallocates the whole HBM, and the heavy compute paths are jitted,
-mesh-shardable programs with no host callbacks.
+Defaults: float32 end-to-end on device (long log-likelihood sums use
+compensated accumulation), XLA never preallocates the whole device memory,
+and the heavy compute paths are jitted, mesh-shardable programs with no
+host callbacks.  On an NVIDIA GPU the likelihood runs in a Pallas-Triton
+kernel (phlash_tpu.ops.smc_triton).
 """
 
 import os
@@ -25,19 +25,23 @@ import jax as _jax
 # the default parameter graph is float32: the assembly is
 # cancellation-free (phlash_tpu.transition._expQ2), matmuls pin
 # Precision.HIGHEST, and transcendentals use faithfully-rounded f32
-# implementations (utils/accurate.py) — measured equal posterior
-# recovery to f64 at 2.2x the fit speed (docs/DESIGN.md).  The reference
-# instead requires f64 throughout (/root/reference/src/phlash/__init__.py:16).
+# implementations (utils/accurate.py).  The reference instead requires
+# f64 throughout (upstream phlash/__init__.py:16).
 _jax.config.update("jax_enable_x64", True)
 
-# TPU kernel compiles are expensive (minutes); persist them across runs.
-# Opt out with PHLASH_TPU_NO_COMPILE_CACHE=1 or by setting your own
-# JAX_COMPILATION_CACHE_DIR.
-if not os.environ.get("PHLASH_TPU_NO_COMPILE_CACHE"):
-    os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "phlash_tpu", "xla"),
+
+def compile_cache_dir() -> str:
+    """Where compiled programs persist: JAX_COMPILATION_CACHE_DIR if set,
+    else a fixed `.jax_cache` in the checkout (the path is part of the
+    cache key, so it must not move between runs)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
     )
+
+
+# JAX reads JAX_COMPILATION_CACHE_DIR only when it is imported, so the
+# setting goes through jax.config
+_jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
 
 from phlash_tpu.data import contig
 from phlash_tpu.mcmc import fit

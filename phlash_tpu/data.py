@@ -3,10 +3,10 @@
 Produces exactly what the device loop consumes: an int8 matrix of
 fixed-size overlapping chunks (values in {-1 missing, 0 hom, 1 het}) and an
 aggregate allele-frequency spectrum.  Capability parity with the reference
-(/root/reference/src/phlash/data.py:22-558) with these TPU-first choices:
+(upstream phlash/data.py:22-558) with these choices:
 
 * chunk tensors are emitted in a single contiguous int8 array sized for one
-  HBM upload;
+  upload to device memory;
 * ingestion is self-contained: psmcfa and VCF text parsers plus a native
   BCF2.2/BGZF reader (phlash_tpu.io.bcf) need no pysam; pysam, when
   installed, is preferred for its indexed region fetch; tskit is optional

@@ -2,7 +2,7 @@
 
 Three roles (mirroring /root/reference/src/phlash/hmm.py:14-87):
 
-1. correctness oracle for the optimized TPU kernels in phlash_tpu.ops;
+1. correctness oracle for the optimized kernels in phlash_tpu.ops;
 2. the "warmup" engine that filters each chunk's overlap prefix to produce a
    per-chunk initial distribution (the sequence-parallel correction trick);
 3. the portable fallback likelihood on CPU.
@@ -10,7 +10,7 @@ Three roles (mirroring /root/reference/src/phlash/hmm.py:14-87):
 `matvec_smc` exploits the compressed SMC' transition structure
 (A[i>j,j]=b[j]; A[j,j]=d[j]; A[i<j,j]=u[i]v[j]) to apply v @ A in O(M) work
 per site.  The invariant `matvec_smc(v, pp) == v @ dense_transition(pp)` is
-what validates the O(M) and MXU-dense kernels alike (tests/test_hmm.py).
+what validates the O(M) and dense kernels alike (tests/test_hmm.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Native-accelerated ingestion helpers.
 
-The TPU framework keeps device compute in Pallas/XLA; host-side ingestion of
-genome files is the remaining hot loop.  `fastvcf` provides a C tokenizer
+Device compute lives in Pallas/XLA; host-side ingestion of genome files
+is the remaining hot loop.  `fastvcf` provides a C tokenizer
 for VCF genotype columns (built on demand with the system compiler, loaded
 via ctypes); phlash_tpu.data falls back to the pure-Python parser when the
 extension is unavailable, so the dependency is strictly optional.

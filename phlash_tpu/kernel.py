@@ -1,9 +1,9 @@
-"""Likelihood-kernel dispatch: pick the fastest backend for this platform.
+"""Likelihood-kernel dispatch.
 
-Mirrors the reference dispatch (/root/reference/src/phlash/kernel.py:7-24)
-with TPU-first priorities: the fused MXU/Pallas kernel on TPU, the batched
-dense-XLA kernel elsewhere, and the O(M) scan oracle always available for
-testing.  All backends share the interface::
+Mirrors the reference dispatch (upstream phlash/kernel.py:7-24):
+the structured Pallas-Triton kernel on NVIDIA GPUs, the batched dense-XLA
+kernel elsewhere, and the O(M) scan oracle always available for testing.
+All backends share the interface::
 
     kern.loglik(pp, index) -> float      # jittable, differentiable
     kern(pp, index, grad)  -> ll or (ll, grads)
@@ -17,82 +17,61 @@ import jax
 
 logger = logging.getLogger(__name__)
 
+BACKENDS = ("triton", "dense", "scan")
+
+
+def default_backend(M: int) -> str:
+    """The backend `get_kernel` picks when none is named.
+
+    On a GPU that is the triton kernel for every M it supports; other M,
+    and every other platform, get the dense XLA kernel."""
+    from phlash_tpu.ops.smc_triton import SUPPORTED_M
+
+    if jax.default_backend() == "gpu" and M in SUPPORTED_M:
+        return "triton"
+    return "dense"
+
 
 def get_kernel(M: int, data, double_precision: bool = False, backend: str = None,
-               mesh=None, seg_len=None, tune_shape: tuple = None):
+               mesh=None, interpret: bool = False):
     """Return a likelihood kernel for the int8 chunk tensor `data`.
 
     Args:
-        M: number of TMRCA discretization intervals.  16 is the tuned
-            production value; the TPU Pallas backend accepts any power-of-two
-            multiple of 8 (8/16/32/64 — ops/pallas_smc.SUPPORTED_M); other M
-            falls back to the dense backend with a logged warning.
+        M: number of TMRCA discretization intervals.  The triton backend
+            takes M in ops/smc_triton.SUPPORTED_M (8, 16, 32, 64) and raises
+            for any other M.
         data: int8 array (num_chunks, chunk_len).
-        double_precision: use float64 state (slow on TPU; CPU testing only).
-        backend: force "scan" (O(M) oracle), "dense" (batched XLA), or
-            "pallas" (TPU fused kernel); default picks per platform.
+        double_precision: float64 state (dense and scan only).
+        backend: "triton" (GPU kernel), "dense" (batched XLA) or "scan"
+            (O(M) oracle); None picks per platform (`default_backend`).
         mesh: optional jax.sharding.Mesh — the chunk tensor is sharded over
-            the mesh's chunk axis and (for the Pallas backend) the kernel
-            runs under shard_map with the packed lane tiles split over all
-            devices.
-        seg_len: override the Pallas/dense segment length (sites per grid
-            step); None keeps each backend's tuned default.  Small values
-            are used by interpret-mode dry runs.  The string "auto" runs the
-            one-shot on-device autotune (ops/autotune.py, cached per device
-            kind + shape) when the Pallas backend is selected, and falls
-            back to the default elsewhere.
-        tune_shape: (B, S) used by seg_len="auto" to time the kernel at a
-            realistic batch shape; defaults to the reference workload
-            (500 particles, 5 chunks).
+            the mesh's chunk axis, and the triton kernel runs under
+            shard_map with its particle axis split over all devices.
+        interpret: run the triton kernel in the Pallas interpreter (CPU
+            tests).  Never chosen implicitly.
     """
     if backend is None:
-        platform = jax.default_backend()
-        backend = "pallas" if platform == "tpu" else "dense"
-    tuned_for_pallas = False
-    if seg_len == "auto":
-        if backend == "pallas":
-            from phlash_tpu.ops.autotune import autotune_seg_len
+        backend = default_backend(M)
+    if backend == "triton":
+        from phlash_tpu.ops.smc_triton import TritonKernel
 
-            B, S = tune_shape or (500, 5)
-            seg_len = autotune_seg_len(
-                L=int(data.shape[-1]), B=B, S=S, M=M,
-                double_precision=double_precision, mesh=mesh,
-            )
-            tuned_for_pallas = True
-        else:
-            seg_len = None  # autotune targets the Pallas kernel only
-    seg_kw = {"seg_len": seg_len} if seg_len else {}
-    if backend == "pallas":
-        try:
-            from phlash_tpu.ops.kernel_smc import SMCKernel
-
-            return SMCKernel(
-                M_=M, data=data, double_precision=double_precision, mesh=mesh,
-                **seg_kw,
-            )
-        except Exception as e:  # pragma: no cover - platform dependent
-            logger.warning("Pallas kernel unavailable (%s); using dense XLA kernel", e)
-            backend = "dense"
-            if tuned_for_pallas:
-                # a seg_len tuned for the Pallas kernel is meaningless for
-                # dense; let DenseKernel apply its own heuristic
-                seg_kw = {}
-    if backend == "pallas_mxu":  # kept for A/B benchmarking
-        from phlash_tpu.ops.kernel_pallas import PallasKernel
-
-        kern = PallasKernel(M_=M, data=data, double_precision=double_precision)
+        kern = TritonKernel(
+            M=M, data=data, double_precision=double_precision, mesh=mesh,
+            interpret=interpret,
+        )
     elif backend == "dense":
         from phlash_tpu.ops.kernel_dense import DenseKernel
 
-        kern = DenseKernel(M=M, data=data, double_precision=double_precision, **seg_kw)
+        kern = DenseKernel(M=M, data=data, double_precision=double_precision)
     elif backend == "scan":
         from phlash_tpu.hmm import PureXLAKernel
 
         kern = PureXLAKernel(M=M, data=data, double_precision=double_precision)
     else:
-        raise ValueError(f"unknown kernel backend: {backend}")
+        raise ValueError(f"unknown kernel backend {backend!r}; expected one of {BACKENDS}")
+    if interpret and backend != "triton":
+        raise ValueError("interpret=True applies to the triton backend only")
     if mesh is not None:
-        # pure-XLA backends: shard the chunk tensor; GSPMD partitions the rest
         from phlash_tpu.parallel import chunk_sharding
 
         kern.data = jax.device_put(kern.data, chunk_sharding(mesh))

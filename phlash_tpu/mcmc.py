@@ -1,7 +1,7 @@
 """SVGD posterior sampling driver: `fit(data, test_data, **options)`.
 
 Capability parity with the reference driver
-(/root/reference/src/phlash/mcmc.py:34-314) with a TPU-native execution
+(upstream phlash/mcmc.py:34-314) with an on-device execution
 model: one jitted step performs minibatch-index sampling, the warmup-prefix
 filtering, the (particles x chunks) likelihood + gradient, and the SVGD
 update entirely on device — there is no host callback, no host-side
@@ -9,7 +9,7 @@ minibatch gather, and no per-step HtoD traffic.  Data is uploaded once; the
 Python loop only advances the PRNG key, checks finiteness, and handles
 early stopping / callbacks.  Pass `mesh=` (a jax.sharding.Mesh from
 phlash_tpu.parallel.make_mesh) to shard particles and chunk data over
-multiple chips.
+multiple GPUs.
 
 Options (same vocabulary as the reference): key, niter, window_size,
 overlap, chunk_size, max_samples, num_workers, mutation_rate, truth,
@@ -21,12 +21,9 @@ dispatch via lax.scan — amortizes per-call host/dispatch overhead when
 the step graph is only a few ms; periodic finiteness/ELPD/checkpoint
 cadences then land on the first call at or after their scheduled
 iteration; defaults to 10 on accelerator backends and 1 on CPU),
-kernel_seg_len (sites per Pallas grid step; the string "auto" runs a
-one-shot on-device autotune over {128, 256, 512} at this run's batch
-shape, cached per device kind + shape under ~/.cache/phlash_tpu), and
-double_precision_params (default False: the particle cloud and the
-differentiated assembly graph run in float32 — verified to match the f64
-graph's posterior recovery at ~2.2x the fit speed; True restores f64).
+and double_precision_params (default False: the particle
+cloud and the differentiated assembly graph run in float32; True restores
+f64).
 
 With test_data given, the held-out ELPD is computed inside the jitted
 step call itself (returned as an aux scalar), so an ELPD-bearing call is
@@ -79,7 +76,7 @@ def fit(data: list[Contig], test_data: Contig = None, **options) -> list[Demogra
         When `test_data` is given, the returned particles are the ones with
         the best held-out ELPD seen during the run — not the final iterate.
         (The reference returns the final state even though it tracks the
-        best one, /root/reference/src/phlash/mcmc.py:293-314; returning the
+        best one, upstream phlash/mcmc.py:293-314; returning the
         tracked optimum is an intentional deviation.)  Pass
         `return_final=True` for reference-parity behavior.
     """
@@ -152,18 +149,12 @@ def fit(data: list[Contig], test_data: Contig = None, **options) -> list[Demogra
         )
         N_test = len(test_chunks)
         S_elpd = min(N_test, int(options.get("elpd_samples", max(prog.S, 4))))
-        seg_opt = options.get("kernel_seg_len")
-        if seg_opt == "auto":
-            # reuse the training kernel's tuned segment rather than paying a
-            # second autotune for the (rare) held-out evaluation launches
-            seg_opt = getattr(prog.kern, "seg_len", None)
         test_kern = get_kernel(
             M=prog.init.M,
             data=np.ascontiguousarray(test_chunks[:, overlap:]),
             double_precision=options.get("double_precision", False),
             backend=options.get("kernel_backend"),
             mesh=mesh,
-            seg_len=seg_opt,
         )
         test_warmup = jnp.asarray(
             np.ascontiguousarray(test_chunks[:, :overlap]), dtype=jnp.int8
@@ -405,7 +396,7 @@ def fit(data: list[Contig], test_data: Contig = None, **options) -> list[Demogra
     logger.info("fit finished: %s", meter.summary())
     if best_elpd is not None and not options.get("return_final", False):
         # return the best-held-out-ELPD particles, not the last iterate (the
-        # reference returns the final state, /root/reference/src/phlash/
+        # reference returns the final state, upstream phlash/
         # mcmc.py:293-314 — SURVEY.md §5 flags that as a quirk to fix);
         # see the fit() docstring and return_final=True for parity behavior
         logger.info("returning best-ELPD state from iteration %d", best_elpd[0])

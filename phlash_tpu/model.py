@@ -12,7 +12,7 @@ Semantics match the reference (/root/reference/src/phlash/model.py:11-73):
   kernel, adds the AFS term, and combines with weights c = [1, N/S, 1] so
   minibatch gradients are unbiased.
 
-Everything here is pure and jit/vmap/grad-composable; on TPU the whole
+Everything here is pure and jit/vmap/grad-composable; the whole
 per-particle density (warmup scan + kernel + AFS) fuses into one XLA program
 with no host callbacks.
 """
@@ -35,8 +35,7 @@ def log_prior(mcp: MCMCParams) -> jax.Array:
     lp = jax.scipy.stats.norm.logpdf(alog(mcp.rho_over_theta)).sum()
     lp -= mcp.alpha * jnp.sum(jnp.diff(mcp.log_c) ** 2)
     flat, _ = jax.flatten_util.ravel_pytree(mcp)
-    # sum-of-squares, not flat @ flat: a 19-element dot per particle lowers
-    # to a latency-bound tiny MXU pass under vmap
+    # sum-of-squares, not flat @ flat: no 19-element batched dot per particle
     lp -= mcp.beta * jnp.sum(flat * flat)
     return lp
 
@@ -72,8 +71,8 @@ def log_density(
 
     if afs is not None:
         n = len(afs) + 1
-        # float32 throughout: an int64/f64 matmul here crashes the TPU
-        # compiler, and f32 is exact for realistic AFS counts' purposes
+        # float32 throughout: f32 is exact for realistic AFS counts'
+        # purposes and keeps the f32 graph free of f64
         T = jnp.eye(n - 1, dtype=jnp.float32) if afs_transform is None else afs_transform
         T = T.astype(jnp.float32)
         assert T.ndim == 2 and T.shape[1] == n - 1
@@ -132,9 +131,8 @@ def log_density_batched(
             etbl = dm.eta.etbl(n)
             esfs = (etbl / etbl.sum()).astype(jnp.float32)
             # T @ esfs as an elementwise product + reduce: exactly-rounded
-            # f32 (same accuracy as the HIGHEST-precision matmul) and it
-            # stays on the VPU — a per-particle batched dot_general this
-            # small lowers to latency-bound MXU passes
+            # f32 (same accuracy as the HIGHEST-precision matmul) without a
+            # tiny per-particle batched dot_general
             return xlogy(T_afs, (T * esfs).sum(-1)).sum()
 
         l_afs = jax.vmap(one_afs)(dms)

@@ -1,8 +1,8 @@
-"""Process-pool guard: ingestion workers must never touch the TPU.
+"""Process-pool guard: ingestion workers must never touch the GPU.
 
 Workers do pure numpy/IO work; the initializer pins any JAX import inside a
-worker to the CPU platform so spawned processes cannot grab the TPU runtime
-(reference behavior for GPUs: /root/reference/src/phlash/mp.py:6-18).
+worker to the CPU platform so spawned processes cannot reserve the card's
+memory (reference behavior: upstream phlash/mp.py:6-18).
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ def _pin_worker_to_cpu():
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["JAX_PLATFORM_NAME"] = "cpu"
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    os.environ["TPU_VISIBLE_DEVICES"] = ""
 
 
 class CpuProcessPoolExecutor(ProcessPoolExecutor):

@@ -2,12 +2,11 @@
 
 Backends (all sharing the interface defined in phlash_tpu.kernel):
 
+* smc_triton — the GPU kernel: the structured O(M) recursion and its
+  adjoint in Pallas on the Triton route, one HMM per thread, custom VJP.
 * kernel_dense — batched dense-transition XLA implementation with
   segment-checkpointed autodiff; portable, and the correctness bridge
-  between the O(M) scan oracle and the Pallas kernel.
-* kernel_pallas — the TPU-native fused kernel: per-particle 16x16 transition
-  matrices packed block-diagonally into 128-lane MXU tiles, observation
-  chunks streamed from HBM, per-site rescaling, custom VJP.
+  between the O(M) scan oracle and the triton kernel.
 """
 
 from phlash_tpu.ops.packing import dense_transition

@@ -1,8 +1,8 @@
 """Shared oracle-comparison helpers for the sharded-kernel checks.
 
-Used by tests/test_parallel.py, tools/sharded_adjoint_probe.py and
-__graft_entry__.dryrun_multichip, which all validate the sharded Pallas
-kernel's value and adjoint against the dense backend.  Centralised here
+Used by the kernel tests (tests/test_smc_kernel.py, test_parallel.py,
+test_gpu.py) and chip_smoke.py, which validate the triton kernel's value
+and adjoint against the dense backend.  Centralised here
 because the comparison has two easy-to-get-wrong ingredients:
 
 * the oracle must actually run in float64 — DenseKernel casts its inputs

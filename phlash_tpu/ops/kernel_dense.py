@@ -79,7 +79,7 @@ class DenseKernel:
 
     `loglik` is pure and differentiable; batching over chunks and particles
     happens through vmap (XLA turns the per-site dense products into batched
-    matmuls).  See kernel_pallas.PallasKernel for the hand-tiled TPU variant.
+    matmuls).  See smc_triton.TritonKernel for the GPU kernel.
     """
 
     def __init__(self, M: int, data, double_precision: bool = False, seg_len: int = None):

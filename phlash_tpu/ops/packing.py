@@ -1,16 +1,11 @@
-"""Dense reconstruction and MXU packing of the compressed SMC' transition.
+"""Dense reconstruction of the compressed SMC' transition.
 
 The compressed PSMCParams (b, d, u, v) describe the M x M transition matrix
 
     A[i, j] = b[j] * 1{i > j}  +  d[j] * 1{i == j}  +  u[i] v[j] * 1{i < j}.
 
-The O(M)-per-site form (phlash_tpu.hmm.matvec_smc) is the right shape for a
-scalar core; the TPU's MXU instead wants `alpha_row @ A` as a dense matmul.
-With M = 16 a single A wastes the 128x128 systolic array, so the Pallas
-kernel packs G = 128 // M = 8 particles' transition matrices into one
-block-diagonal (128, 128) tile and lays HMM states out as
-lanes[g * M + m] = state m of particle g — one matmul advances 8 particles
-for a full row-tile of chunks.
+The O(M)-per-site form (phlash_tpu.hmm.matvec_smc) is what the kernels use;
+the dense matrix backs the `dense` backend and the structure tests.
 """
 
 from __future__ import annotations
@@ -33,7 +28,7 @@ def dense_transition(pp: PSMCParams) -> jnp.ndarray:
 def block_diag_pack(As: jnp.ndarray) -> jnp.ndarray:
     """Pack G transition matrices (G, M, M) into one block-diagonal (G*M, G*M).
 
-    Used to tile multiple particles' HMMs onto a single MXU matmul.
+    One product then advances several particles' HMMs (tests/test_hmm.py).
     """
     G, M, _ = As.shape
     eye = jnp.eye(G, dtype=As.dtype)

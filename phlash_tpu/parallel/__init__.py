@@ -11,8 +11,8 @@ sharding-annotated jit: one 2-D mesh
 
 The whole training step (minibatch sampling, warmup filtering, HMM
 likelihood + gradients, SVGD update) is a single jitted, sharded program —
-no host callbacks, no replication of the chunk tensor, collectives ride the
-ICI.
+no host callbacks, no replication of the chunk tensor; XLA hands the
+collectives to NCCL over NVLink.
 """
 
 from phlash_tpu.parallel.mesh import (

@@ -10,19 +10,13 @@ PARTICLE_AXIS = "p"
 CHUNK_AXIS = "d"
 
 
-def make_mesh(n_devices: int = None, particle_axis: int = None, n_slices: int = 1) -> Mesh:
+def make_mesh(n_devices: int = None, particle_axis: int = None) -> Mesh:
     """Build a (p, d) mesh over the first n_devices devices.
 
     By default the particle axis gets as many devices as possible while
     keeping the chunk axis >= 1; for n >= 4 we use an (n//2, 2) mesh so both
-    axes are exercised, otherwise (n, 1).
-
-    For multi-slice pods pass ``n_slices``: the particle axis is laid out
-    with slices outermost (via mesh_utils.create_hybrid_device_mesh when
-    the runtime exposes slice topology), so the only cross-slice (DCN)
-    collective is the SVGD Gram all-gather — P x ~19 floats per step —
-    while the chunk-tensor gather and all heavy traffic stay on ICI
-    within a slice.
+    axes are exercised, otherwise (n, 1).  Every GPU of a host reaches every
+    other at the same rate, so the layout follows the algorithm alone.
     """
     devs = jax.devices()
     n = n_devices or len(devs)
@@ -31,24 +25,7 @@ def make_mesh(n_devices: int = None, particle_axis: int = None, n_slices: int = 
         particle_axis = n // 2 if n >= 4 else n
     chunk_axis = n // particle_axis
     assert particle_axis * chunk_axis == n, "mesh axes must tile the device count"
-    if n_slices > 1:
-        assert particle_axis % n_slices == 0, (
-            "the particle axis must be divisible by the slice count"
-        )
-        try:
-            from jax.experimental import mesh_utils
-
-            grid = mesh_utils.create_hybrid_device_mesh(
-                (particle_axis // n_slices, chunk_axis),
-                (n_slices, 1),
-                devices=devs[:n],
-            )
-        except Exception:
-            # homogeneous/virtual devices expose no slice topology: the
-            # slice split is then purely notional and row-major is correct
-            grid = np.array(devs[:n]).reshape(particle_axis, chunk_axis)
-    else:
-        grid = np.array(devs[:n]).reshape(particle_axis, chunk_axis)
+    grid = np.array(devs[:n]).reshape(particle_axis, chunk_axis)
     return Mesh(grid, (PARTICLE_AXIS, CHUNK_AXIS))
 
 

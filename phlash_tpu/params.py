@@ -14,7 +14,7 @@ Two views of the same demographic model (reference:
   initial distribution pi.  This is what the HMM kernels consume; see
   phlash_tpu.hmm.matvec_smc for the structure invariant and
   phlash_tpu.ops.packing.dense_transition for the dense reconstruction used
-  on the TPU MXU path.
+  by the `dense` backend.
 """
 
 from __future__ import annotations

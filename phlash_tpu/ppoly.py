@@ -41,8 +41,7 @@ class PPoly(NamedTuple):
         # constant offset carried into the next piece
         piece_vals = jnp.polyval(ci[:, :-1], jnp.diff(self.x)[:-1])
         # dtype-pinned zero: under the global x64 policy a bare jnp.zeros is
-        # float64, which would silently promote an f32 polynomial (and f64
-        # is software-emulated on TPU)
+        # float64, which would silently promote an f32 polynomial
         offsets = jnp.cumsum(
             jnp.concatenate([jnp.zeros(1, piece_vals.dtype), piece_vals])
         )
@@ -66,8 +65,7 @@ class PPoly(NamedTuple):
         dt = jnp.diff(self.x)[:-1]
         # cumulative hazard at each left breakpoint (zero dtype-pinned: a
         # bare jnp.zeros is f64 under x64 and would promote the whole
-        # integral — and with it the AFS term's per-particle graph — to
-        # software-emulated f64 on TPU; measured at ~8 ms of a ~17 ms step)
+        # integral — and with it the AFS term's per-particle graph — to f64)
         haz = jnp.concatenate([jnp.zeros(1, rate.dtype), jnp.cumsum(rate[:-1] * dt)])
         # integral over each finite epoch + the final (half-open) epoch
         per_epoch = jnp.concatenate(

@@ -11,7 +11,7 @@ NaN-safe-gradient) code.
 
 Capability parity with the reference
 (/root/reference/src/phlash/size_history.py:17-369), re-derived for float32
-TPU execution.  demes/msprime interop is optional (gated imports).
+execution on the accelerator.  demes/msprime interop is optional (gated imports).
 """
 
 from __future__ import annotations
@@ -152,9 +152,8 @@ class SizeHistory(NamedTuple):
             exp(-m H_k) · (1 - exp(-m c_k dt_k)) / (m c_k),
 
         with the final (open) epoch contributing exp(-m H_last)/(m c_last).
-        (The earlier per-j vmap over .mu built n-1 separate
-        PPoly/exp_integral graphs; their tiny-op overhead dominated the
-        whole SVGD step's AFS term on TPU — see tools/step_profile.py.)
+        (A per-j vmap over .mu would build n-1 separate
+        PPoly/exp_integral graphs of tiny ops.)
         """
         dt = jnp.diff(self.t)  # (K-1,) finite epochs
         haz = jnp.concatenate(
@@ -179,8 +178,8 @@ class SizeHistory(NamedTuple):
         """
         etjj = self.etjj(n)
         # W in the working dtype: a f64 matmul here would silently promote
-        # an otherwise-f32 model (and large f64 matmuls break the v5e
-        # compiler); W's entries are exact in f64 and fine rounded to f32
+        # an otherwise-f32 model; W's entries are exact in f64 and fine
+        # rounded to f32
         return matmul_hi(jnp.asarray(_W_matrix(n), dtype=etjj.dtype), etjj)
 
     # -- quantiles / metrics --------------------------------------------------

@@ -29,53 +29,6 @@ class SVGDState(NamedTuple):
     opt_state: optax.OptState
 
 
-def _kth_smallest_bits(bits: jax.Array, k: jax.Array | int) -> jax.Array:
-    """Exact k-th smallest (0-based) of non-negative-float int32 bit patterns.
-
-    Non-negative IEEE-754 floats order identically to their bit patterns
-    read as int32, so a 31-round binary search over the bit range
-    [0, 0x7f800000] with one masked count per round selects the exact
-    order statistic — no sort, no gather.  Returns the element's bits.
-    """
-    k1 = jnp.int32(k) + 1
-
-    def body(_, lohi):
-        lo, hi = lohi
-        mid = lo + ((hi - lo) >> 1)
-        cnt = jnp.sum((bits <= mid).astype(jnp.int32))
-        take_lo = cnt >= k1  # kth value lies in [lo, mid]
-        return jnp.where(take_lo, lo, mid + 1), jnp.where(take_lo, mid, hi)
-
-    lo, _ = jax.lax.fori_loop(
-        0, 31, body, (jnp.int32(0), jnp.int32(0x7F800000))
-    )
-    return lo
-
-
-def _offdiag_median_select(d: jax.Array, num_particles: int) -> jax.Array:
-    """Median of the off-diagonal entries of a symmetric distance matrix by
-    exact bitwise selection: bit-identical to sorting and averaging the two
-    middle order statistics, but ~31 counting passes instead of an O(N log N)
-    sort — measured much faster than jnp.sort on TPU at P=500 (the sort was
-    the largest non-kernel term of the whole SVGD step)."""
-    P = num_particles
-    n = P * P - P
-    d = jnp.where(np.eye(P, dtype=bool), jnp.inf, d)
-    bits = jax.lax.bitcast_convert_type(d.ravel(), jnp.int32)
-    k1, k2 = (n - 1) // 2, n // 2
-    v1 = _kth_smallest_bits(bits, k1)
-    if k2 == k1:
-        v2 = v1
-    else:
-        # rank k2 = k1 + 1: either a duplicate of v1 or the next value up
-        cnt1 = jnp.sum((bits <= v1).astype(jnp.int32))
-        nxt = jnp.min(jnp.where(bits > v1, bits, jnp.int32(0x7F800000)))
-        v2 = jnp.where(cnt1 >= k2 + 1, v1, nxt)
-    f1 = jax.lax.bitcast_convert_type(v1, jnp.float32)
-    f2 = jax.lax.bitcast_convert_type(v2, jnp.float32)
-    return 0.5 * (f1 + f2)
-
-
 def median_bandwidth(sq_dists: jax.Array, num_particles: int) -> jax.Array:
     """Median heuristic: h = med^2 / log(P), floored away from zero.
 
@@ -95,22 +48,15 @@ def median_bandwidth(sq_dists: jax.Array, num_particles: int) -> jax.Array:
     # (both interpolation neighbors map to the original neighbors), so
     # masking the diagonal to +inf, sorting the full P x P matrix, and
     # averaging the two middle off-diagonal order statistics is bit-identical
-    # to jnp.median(d[tril_indices(P, -1)]) — and ~2.2x faster on TPU, where
-    # the 125k-element advanced-index gather dominated the whole SVGD step
-    # (measured 1.86 -> 0.84 ms at P=500).  numpy eye / python-float log(P):
-    # P is static, and jnp equivalents would plant f64 tensors in the f32
-    # step graph (pinned by test_f32_step_graph_has_no_tensor_f64).
-    d = jnp.sqrt(sq_dists)
-    if d.dtype == jnp.float32 and jax.default_backend() == "tpu":
-        # exact bitwise selection of the two middle order statistics:
-        # bit-identical to the sort below, ~4x faster on TPU (the full-sort
-        # median was the largest non-kernel term of the SVGD step)
-        med = _offdiag_median_select(d, P)
-    else:
-        d = jnp.where(np.eye(P, dtype=bool), jnp.inf, d)
-        n = P * P - P
-        s = jnp.sort(d.ravel())
-        med = 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    # to jnp.median(d[tril_indices(P, -1)]).  (A sort-free bitwise
+    # order-statistic selection gave the same bits but ran slower on an
+    # H100 at P=500.)  numpy eye / python-float log(P): P is static, and jnp
+    # equivalents would plant f64 tensors in the f32 step graph (pinned by
+    # test_f32_step_graph_has_no_tensor_f64).
+    d = jnp.where(np.eye(P, dtype=bool), jnp.inf, jnp.sqrt(sq_dists))
+    n = P * P - P
+    s = jnp.sort(d.ravel())
+    med = 0.5 * (s[(n - 1) // 2] + s[n // 2])
     h = med**2 / float(np.log(P))
     return jnp.maximum(h, 1e-12)
 
@@ -146,7 +92,7 @@ class SVGD:
         """batched_grad=False: grad_log_density takes one particle (vmapped
         here).  batched_grad=True: it takes the whole batched particle pytree
         and returns batched gradients — the fast path for kernels that want
-        the full (particles x chunks) batch (e.g. the Pallas TPU kernel via
+        the full (particles x chunks) batch (e.g. the triton kernel via
         `jax.grad(lambda P: log_density_batched(P, ...).sum())`)."""
         self.grad_fn = grad_log_density
         self.optimizer = optimizer

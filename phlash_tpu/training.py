@@ -147,12 +147,9 @@ def build_training(
     # particle cloud: Gaussian around the init in flattened coordinates.
     # float32 parameters are the default: the transition assembly is
     # cancellation-free (transition._expQ2), assembly matmuls pin
-    # Precision.HIGHEST (TPU otherwise lowers f32 matmuls to bf16 MXU
-    # passes, which corrupted the scan-VJP gradients), and the remaining
-    # transcendentals go through utils/accurate.py's faithfully-rounded
-    # f32 exp/expm1/log.  Measured on TPU: f32 matches f64 posterior
-    # recovery (bottleneck tv 0.099 vs 0.101) at 2.2x the end-to-end
-    # fit speed (f64 is software-emulated on TPU).
+    # Precision.HIGHEST (a reduced-precision f32 matmul corrupts the
+    # scan-VJP gradients), and the remaining transcendentals go through
+    # utils/accurate.py's faithfully-rounded f32 exp/expm1/log.
     # double_precision_params=True restores the f64 graph.
     pdtype = jnp.float64 if options.get("double_precision_params", False) else jnp.float32
     init = jax.tree.map(lambda a: jnp.asarray(a, pdtype), init)
@@ -185,21 +182,16 @@ def build_training(
         double_precision=options.get("double_precision", False),
         backend=options.get("kernel_backend"),
         mesh=mesh,
-        seg_len=options.get("kernel_seg_len"),
-        # seg_len="auto" times the kernel at this run's actual batch shape
-        tune_shape=(num_particles, S),
     )
 
     # unbiased minibatch gradients: HMM term scaled by N / S.  f32-pinned:
     # a bare jnp.array of Python floats is f64 under x64 and upcasts the
-    # per-particle density combination (f32 * f64 promotes; f64 is
-    # software-emulated on TPU)
+    # per-particle density combination (f32 * f64 promotes)
     weights = jnp.array([1.0, N / S, 1.0], dtype=jnp.float32)
 
     def one_step(state: SVGDState, key: jax.Array) -> SVGDState:
         "Sample a minibatch and take one SVGD step — fully on device."
-        # int32 indices: under x64 an int64 gather over a large chunk tensor
-        # in the same program as the Pallas kernels crashes the TPU compiler
+        # int32 indices: x64 would otherwise make the gather int64
         inds = jax.random.choice(key, N, shape=(S,)).astype(jnp.int32)
         return svgd.step(
             state,
@@ -215,11 +207,11 @@ def build_training(
     if spc_opt is None:
         # default: on accelerator backends, amortize per-call dispatch
         # latency by chaining 10 SVGD iterations inside one jitted call
-        # (measured on a v5e via tools/step_compile.py: 6.05 -> 3.93
-        # ms/iter).  10 matches the default ELPD/finiteness cadence, so
-        # the periodic checks land exactly on call boundaries.  CPU keeps
-        # per-iteration calls: dispatch is cheap there and tests rely on
-        # iteration-granular hooks.
+        # (not yet measured against k=1 on the GPU).  10 matches the
+        # default ELPD/finiteness cadence, so the periodic checks land
+        # exactly on call boundaries.  CPU keeps per-iteration calls:
+        # dispatch is cheap there and tests rely on iteration-granular
+        # hooks.
         spc_opt = 10 if jax.devices()[0].platform != "cpu" else 1
     steps_per_call = max(1, min(int(spc_opt), niter))
     step = one_step

@@ -176,12 +176,8 @@ def transition_matrix(dm: DemographicModel, n: int = 2) -> jax.Array:
         "0",
         "false",
     ):
-        # opt-out fallback: the dot_general scan.  The tiny batched 2x2
-        # matmuls lower to latency-bound MXU passes; this was the default
-        # while the tuple combine below was CPU-only-verified.  The tuple
-        # form's XLA:TPU compile of the full fused step has since been
-        # verified (tools/step_compile.py: 6.05 ms/step vs 8.70 here, a
-        # 30% step-time win) and is now the default.
+        # opt-out fallback: the dot_general scan over tiny batched 2x2
+        # matmuls (the tuple combine below is the default).
         cum2 = jax.lax.associative_scan(
             matmul_hi, jnp.concatenate([eye2[None], P2], axis=0)
         )
@@ -191,12 +187,10 @@ def transition_matrix(dm: DemographicModel, n: int = 2) -> jax.Array:
         def mm2(x, y):
             # x @ y for 2×2 blocks carried as a 4-tuple of entry vectors:
             # exactly-rounded f32 elementwise mul/adds (so the precision
-            # pin that motivated matmul_hi is moot here).  A batched
-            # dot_general over 2×2 blocks lowers to latency-bound tiny MXU
-            # passes that dominated the per-particle assembly time
-            # (~100x slower than this form at B=500 — docs/DESIGN.md);
-            # carrying the entries as a tuple (not a stacked array sliced
-            # inside the combine) keeps the scan's VJP graph small.
+            # pin that motivated matmul_hi is moot here), with no tiny
+            # batched dot_general over 2×2 blocks; carrying the entries as
+            # a tuple (not a stacked array sliced inside the combine) keeps
+            # the scan's VJP graph small.
             x00, x01, x10, x11 = x
             y00, y01, y10, y11 = y
             return (

@@ -1,7 +1,7 @@
 """Small shared utilities: pattern strings, pytree helpers, numerics.
 
 Capability parity with the reference utility layer
-(/root/reference/src/phlash/util.py:1-61), re-implemented for a TPU-first
+(upstream phlash/util.py:1-61), re-implemented for this
 codebase (no scipy dependency in the hot path, stdlib logging).
 """
 

@@ -1,13 +1,12 @@
 """Faithfully-rounded float32 transcendentals for the parameter assembly.
 
-XLA:TPU lowers f32 `exp` / `expm1` / `log` to fast polynomial
-approximations with ~4e-6 .. 5e-5 max relative error (measured on v5e;
-CPU gives ~2e-7).  That is harmless for the HMM kernels, but the SMC'
-transition-assembly VJP cancels heavily across sub-intervals and
-amplifies the transcendental noise ~1e5x into O(1) *gradient* error —
-the root cause of the f32 posterior-recovery regression
-(tools/f32_xplat.py: identical inputs, f32 assembly VJP fine on CPU,
-10-100x wrong on TPU).
+An accelerator backend may lower f32 `exp` / `expm1` / `log` to fast
+polynomial approximations a few ulp to ~1e-4 off.  That is harmless for
+the HMM kernels, but the SMC' transition-assembly VJP cancels heavily
+across sub-intervals and amplifies the transcendental noise ~1e5x into
+O(1) *gradient* error (tools/f32_xplat.py compares the f32 assembly VJP
+on the accelerator with the CPU's on identical inputs; whether the GPU's
+native ops pass is not yet measured).
 
 These drop-in replacements recover a-few-ulp f32 accuracy from exactly
 rounded primitives (+, *, ldexp) via Cody-Waite argument reduction +
@@ -107,9 +106,9 @@ def _expm1_jvp(primals, tangents):
 def _log_impl(x):
     "log(x), f32, ~1-2 ulp: frexp to [sqrt(2)/2, sqrt(2)), atanh series."
     x = jnp.asarray(x, jnp.float32)
-    # subnormal inputs break frexp's m-in-[0.5,1) contract on the TPU
-    # backend (log(1e-45) came out -4.27), and XLA flushes subnormal
-    # *products* to zero so rescaling by multiplication is also out.
+    # subnormal inputs can break frexp's m-in-[0.5,1) contract on a
+    # backend that flushes them, and XLA flushes subnormal *products* to
+    # zero so rescaling by multiplication is also out.
     # Rebuild them from the bit pattern instead: a positive subnormal is
     # exactly mantissa * 2^-149, and the mantissa (< 2^23) converts to
     # f32 exactly.
@@ -208,12 +207,10 @@ def matmul_hi(a, b):
     """matmul with precision pinned to HIGHEST — REQUIRED on every
     f32-critical assembly/dynamics product.
 
-    XLA:TPU lowers f32 matmuls to bf16 MXU passes by default (~4e-3
-    relative per product); the transition associative_scan's VJP amplifies
-    that through cross-interval cancellation into O(1) *gradient* error —
-    the root cause of the round-2 f32 posterior-recovery regression
-    (tools/f32_xplat.py: bias 5.6x -> 3.4e-4 after pinning).  Every
-    matmul on the parameter-assembly or SVGD-dynamics path must use this
+    XLA may run f32 matmuls at reduced precision by default (TF32 on an
+    NVIDIA GPU keeps ~3 decimal digits); the transition
+    associative_scan's VJP amplifies that through cross-interval
+    cancellation into O(1) *gradient* error.  Every matmul on the parameter-assembly or SVGD-dynamics path must use this
     helper (or pass the precision explicitly); the products there are all
     tiny, so full f32 accuracy is free.
     """
@@ -229,7 +226,7 @@ def softplus(x):
 
 
 def expit(x):
-    "1 / (1 + e^-x); TPU f32 division is faithful (measured ~1e-7)."
+    "1 / (1 + e^-x), from the faithful exp and an IEEE division."
     return 1.0 / (1.0 + exp(-x))
 
 

@@ -1,9 +1,9 @@
 """Numerically careful primitives shared across the coalescent math core.
 
-TPU note: the framework runs float32 end-to-end on device (the reference
-enables global x64, /root/reference/src/phlash/__init__.py:16, which would be
-emulated and slow on TPU).  Long log-likelihood accumulations therefore use
-Kahan compensation (`kahan_add`) instead of falling back to float64.
+The framework runs float32 end-to-end on device (the reference enables
+global x64, upstream phlash/__init__.py:16).  Long
+log-likelihood accumulations therefore use Kahan compensation
+(`kahan_add`) instead of falling back to float64.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from phlash_tpu.utils.accurate import (
 def softplus_inv(y):
     """Inverse of softplus for y > 0: log(exp(y) - 1), stable for large y.
 
-    (reference: /root/reference/src/phlash/util.py:49-51)
+    (reference: upstream phlash/util.py:49-51)
     """
     return y + alog1p(-aexp(-y))
 
@@ -28,7 +28,7 @@ def expm1inv(x):
 
     For x > ~10, expm1(x) ~ e^x overflows gradients; rewrite as
     e^-x / (1 - e^-x) = -e^-x / expm1(-x).
-    (reference: /root/reference/src/phlash/size_history.py:17-22)
+    (reference: upstream phlash/size_history.py:17-22)
     """
     big = x > 10.0
     x_lo = jnp.where(big, 1.0, x)  # safe operand for the small-x branch
@@ -56,7 +56,7 @@ def invert_cpwli(R):
     """Invert a continuous piecewise-linear increasing scipy PPoly.
 
     Used to map cumulative-hazard values back to times (reference:
-    /root/reference/src/phlash/util.py:54-61).  Host-side scipy only.
+    upstream phlash/util.py:54-61).  Host-side scipy only.
     """
     import numpy as np
     from scipy.interpolate import PPoly

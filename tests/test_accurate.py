@@ -1,11 +1,10 @@
 """Faithful-f32 transcendentals (utils/accurate.py) vs float64 oracles.
 
-These back the f32 parameter-assembly gradient path: XLA:TPU's native f32
-exp/expm1/log approximations carry 4e-6..2.6e-4 max relative error, which
-the assembly VJP's cancellations amplify into O(1) gradient error
+These back the f32 parameter-assembly gradient path: a backend's native
+f32 exp/expm1/log approximations may carry up to ~1e-4 relative error,
+which the assembly VJP's cancellations amplify into O(1) gradient error
 (tools/f32_xplat.py).  The accurate versions must stay within a few ulp of
-f64 on both platforms — this file pins the CPU half; tools/tpu_check.py
-covers the hardware.
+f64 on every platform — this file pins the CPU half.
 """
 
 import jax

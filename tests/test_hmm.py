@@ -1,8 +1,8 @@
 """HMM structure invariants (cf. reference tests/test_hmm.py:11-19).
 
 The key invariant: the O(M) compressed product equals multiplication by the
-dense transition matrix — this is what licenses both the scan kernel and the
-MXU-dense/Pallas kernels.
+dense transition matrix — this is what licenses the scan kernel, the dense
+kernel and the triton kernel alike.
 """
 
 import jax

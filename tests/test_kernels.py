@@ -91,3 +91,36 @@ def test_get_kernel_dispatch(data):
     assert isinstance(k, DenseKernel)
     k = get_kernel(M=16, data=data, backend="scan")
     assert isinstance(k, PureXLAKernel)
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        get_kernel(M=16, data=data, backend="pallas")
+
+
+def test_get_kernel_default_is_dense_on_cpu(data):
+    "No backend named: the dense kernel on the CPU, at any M."
+    from phlash_tpu.kernel import default_backend
+
+    assert isinstance(get_kernel(M=16, data=data), DenseKernel)
+    assert default_backend(16) == default_backend(24) == "dense"
+
+
+def test_get_kernel_interpret_only_on_request(data):
+    """The triton kernel compiles for the GPU unless the caller asks for the
+    interpreter; on the CPU an uninterpreted call raises instead of falling
+    back to another backend."""
+    import jax.numpy as jnp
+
+    from phlash_tpu.ops.smc_triton import TritonKernel
+    from phlash_tpu.params import PSMCParams
+    from phlash_tpu.size_history import DemographicModel
+
+    kern = get_kernel(M=16, data=data, backend="triton")
+    assert isinstance(kern, TritonKernel) and not kern.interpret
+    assert get_kernel(M=16, data=data, backend="triton", interpret=True).interpret
+    with pytest.raises(ValueError, match="triton backend only"):
+        get_kernel(M=16, data=data, backend="dense", interpret=True)
+
+    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
+    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (2, 1) + a.shape), pp)
+    with pytest.raises(Exception, match="interpret"):
+        kern.loglik_batched(pps, jnp.array([0]))

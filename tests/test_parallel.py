@@ -121,9 +121,7 @@ def test_sharded_step_collective_sizes():
     gather from the 'd'-sharded chunk tensor must NOT lower to an
     all-gather of the full tensor — every collective in the compiled step
     must be minibatch/particle-sized, or HBM-capacity scaling silently
-    evaporates at genome scale.  Also: with slices laid outermost on 'p'
-    (n_slices=2), every collective that crosses the slice boundary must be
-    small (the Gram/psum traffic), since cross-slice = DCN on a real pod."""
+    evaporates at genome scale."""
     rng = np.random.default_rng(3)
     chunks = rng.binomial(1, 0.05, size=(1024, 2100)).astype(np.int8)
     afs = np.array([50, 20, 10, 5, 2], dtype=np.int64)
@@ -132,7 +130,7 @@ def test_sharded_step_collective_sizes():
         chunks, afs, window_size=100, overlap=100, key=jax.random.PRNGKey(0),
         options=options,
     )
-    mesh = make_mesh(8, particle_axis=4, n_slices=2)
+    mesh = make_mesh(8, particle_axis=4)
     prog.kern.data = jax.device_put(prog.kern.data, chunk_sharding(mesh))
     place, jit_step = shard_training_step(prog.step, mesh)
     state = place(prog.state)
@@ -148,38 +146,29 @@ def test_sharded_step_collective_sizes():
         f"({full_bytes} B): {offenders[:3]}"
     )
 
-    # cross-slice (DCN on a pod): mesh (4, 2) row-major -> slice 0 owns
-    # devices 0-3, slice 1 owns 4-7; any replica group spanning both must
-    # carry only the small SVGD coupling traffic
-    def crosses(groups):
-        return any(min(g) < 4 <= max(g) for g in groups if g)
 
-    DCN_CAP = 64 * 1024
-    heavy_cross = [
-        (op, b, ln) for op, b, groups, ln in colls if crosses(groups) and b > DCN_CAP
-    ]
-    assert not heavy_cross, f"large cross-slice collective(s): {heavy_cross[:3]}"
-
-
-@pytest.mark.heavy  # interpret-mode compile of the full pallas step (~1 min;
-# rebalanced from slow, r4 weak item 5 -- heavy runs in CI on every push)
-def test_sharded_pallas_step_collective_sizes():
+@pytest.mark.heavy  # interpret-mode compile of the full triton step (~1 min)
+def test_sharded_pallas_step_collective_sizes(monkeypatch):
     """The comms contract of test_sharded_step_collective_sizes, on the
-    PRODUCTION backend (r4 verdict missing item 3): compile the meshed
-    kernel_backend="pallas" training step — the gather from the 'd'-sharded
-    chunk tensor, the `_replicate` constraint, and the shard_map boundary of
-    ops/kernel_smc.py — under interpret mode and assert the same caps: no
-    collective proportional to the full chunk tensor, and only small traffic
-    across the slice (DCN) boundary."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    GPU backend: compile the meshed kernel_backend="triton" training step —
+    the gather from the 'd'-sharded chunk tensor, the replication
+    constraint, and the shard_map boundary of ops/smc_triton.py — in
+    interpret mode and assert the same cap: no collective proportional to
+    the full chunk tensor."""
     rng = np.random.default_rng(6)
     chunks = rng.binomial(1, 0.05, size=(1024, 544)).astype(np.int8)
     afs = np.array([50, 20, 10, 5, 2], dtype=np.int64)
-    mesh = make_mesh(8, particle_axis=4, n_slices=2)
+    import functools
+
+    import phlash_tpu.training
+
+    mesh = make_mesh(8, particle_axis=4)
     options = dict(
-        num_particles=16, minibatch_size=2, kernel_backend="pallas",
-        niter=10, mesh=mesh, kernel_seg_len=32,
+        num_particles=16, minibatch_size=2, kernel_backend="triton", niter=10, mesh=mesh,
+    )
+    monkeypatch.setattr(  # the CPU runs the triton kernel interpreted
+        phlash_tpu.training, "get_kernel",
+        functools.partial(phlash_tpu.training.get_kernel, interpret=True),
     )
     prog = build_training(
         chunks, afs, window_size=100, overlap=32, key=jax.random.PRNGKey(0),
@@ -187,11 +176,10 @@ def test_sharded_pallas_step_collective_sizes():
     )
     place, jit_step = shard_training_step(prog.step, mesh)
     state = place(prog.state)
-    with pltpu.force_tpu_interpret_mode():
-        hlo = jit_step(state).lower(state, jax.random.PRNGKey(1)).compile().as_text()
+    hlo = jit_step(state).lower(state, jax.random.PRNGKey(1)).compile().as_text()
 
     colls = _collectives(hlo)
-    assert colls, "no collectives found — the pallas step did not shard"
+    assert colls, "no collectives found — the triton step did not shard"
     full_bytes = int(np.prod(prog.kern.data.shape))  # int8: 1 B/element
     CAP = full_bytes // 8
     offenders = [(op, b, ln) for op, b, _, ln in colls if b > CAP]
@@ -199,15 +187,6 @@ def test_sharded_pallas_step_collective_sizes():
         f"collective(s) proportional to the full chunk tensor "
         f"({full_bytes} B): {offenders[:3]}"
     )
-
-    def crosses(groups):
-        return any(min(g) < 4 <= max(g) for g in groups if g)
-
-    DCN_CAP = 64 * 1024
-    heavy_cross = [
-        (op, b, ln) for op, b, groups, ln in colls if crosses(groups) and b > DCN_CAP
-    ]
-    assert not heavy_cross, f"large cross-slice collective(s): {heavy_cross[:3]}"
 
 
 def test_sharded_state_placement(program):
@@ -227,33 +206,33 @@ def test_sharding_specs():
     assert replicated(mesh).spec == jax.sharding.PartitionSpec()
 
 
-def test_sharded_pallas_forward_matches_dense():
-    """The production structured kernel under shard_map on the (p, d) mesh.
-
-    Interpret mode (no TPU cores here); values must equal the dense XLA
-    backend.  The sharded adjoint is covered by the slow-marked test below
-    (2-device mesh) and by tools/tpu_check.py on real hardware.
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
-    from phlash_tpu.ops.kernel_dense import DenseKernel
-    from phlash_tpu.ops.kernel_smc import SMCKernel
+def _f32_pps(B, S=None):
     from phlash_tpu.params import PSMCParams
     from phlash_tpu.size_history import DemographicModel
+
+    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
+    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
+    lead = (B,) if S is None else (B, S)
+    return jax.tree.map(lambda a: jnp.broadcast_to(a, lead + a.shape), pp)
+
+
+def test_sharded_pallas_forward_matches_dense():
+    """The triton kernel under shard_map on the (p, d) mesh: the particle
+    axis splits over all 8 devices, the minibatch rows are replicated.
+    Interpret mode; values must equal the dense XLA backend."""
+    from phlash_tpu.ops.kernel_dense import DenseKernel
+    from phlash_tpu.ops.smc_triton import TritonKernel
 
     rng = np.random.default_rng(2)
     data = rng.binomial(1, 0.05, size=(4, 64)).astype(np.int8)
     data[0, 10:20] = -1
-    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
-    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
     B, S = 16, 2
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), pp)
+    pps = _f32_pps(B, S)
     inds = jnp.arange(S)
 
     mesh = make_mesh(8)
-    kern = SMCKernel(M_=16, data=data, seg_len=32, mesh=mesh)
-    with pltpu.force_tpu_interpret_mode():
-        ll = jax.jit(kern.loglik_batched)(pps, inds)
+    kern = TritonKernel(M=16, data=data, mesh=mesh, interpret=True)
+    ll = jax.jit(kern.loglik_batched)(pps, inds)
     assert len(ll.sharding.device_set) == 8  # actually ran distributed
 
     dense = DenseKernel(M=16, data=data, double_precision=True)
@@ -261,88 +240,44 @@ def test_sharded_pallas_forward_matches_dense():
     np.testing.assert_allclose(np.asarray(ll), np.asarray(want), rtol=1e-4)
 
 
-@pytest.mark.slow  # interpret-mode reverse pass is ~30 s on one core
 def test_sharded_pallas_adjoint_matches_dense():
-    """jax.grad through the sharded production kernel (VERDICT r02 missing
-    item 1): value+grad of loglik_batched under shard_map on a 2-device
-    mesh, interpret mode, vs the dense backend per-leaf.  A 2-device mesh
-    keeps the interpreted reverse pass ~30 s; the full 8-device version
-    runs in dryrun_multichip (driver) and tools/sharded_adjoint_probe.py."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from phlash_tpu.ops.kernel_dense import DenseKernel
-    from phlash_tpu.ops.kernel_smc import SMCKernel
-    from phlash_tpu.params import PSMCParams
-    from phlash_tpu.size_history import DemographicModel
+    """jax.grad through the sharded triton kernel: value+grad of
+    loglik_batched under shard_map on a 2-device mesh, interpret mode, vs
+    the f64 dense backend per leaf."""
+    from phlash_tpu.ops.check import assert_grads_match, dense_f64_value_and_grad
+    from phlash_tpu.ops.smc_triton import TritonKernel
 
     rng = np.random.default_rng(4)
     data = rng.binomial(1, 0.05, size=(2, 16)).astype(np.int8)
-    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
-    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
     B, S = 16, 2
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), pp)
+    pps = _f32_pps(B, S)
     inds = jnp.arange(S)
     W = jnp.arange(1.0, B * S + 1).reshape(B, S).astype(jnp.float32)
 
-    mesh = make_mesh(2)
-    kern = SMCKernel(M_=16, data=data, seg_len=8, mesh=mesh)
-    with pltpu.force_tpu_interpret_mode():
-        val, gp = jax.jit(
-            jax.value_and_grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())
-        )(pps)
-
-    from phlash_tpu.ops.check import assert_grads_match, dense_f64_value_and_grad
-
+    kern = TritonKernel(M=16, data=data, mesh=make_mesh(2), interpret=True)
+    val, gp = jax.jit(
+        jax.value_and_grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())
+    )(pps)
     dval, gd = dense_f64_value_and_grad(data, pps, inds, W, seg_len=8)
     np.testing.assert_allclose(float(val), float(dval), rtol=1e-4)
     assert_grads_match(pps._fields, gp, gd)
 
 
-@pytest.mark.slow  # ~25 s interpret-mode compile; the forward test above
-# already proves the shard_map path, this adds the filter entry point
 def test_sharded_pallas_filter_matches_dense():
     "filter_batched (warmup-pi path) under the mesh, vs the dense backend."
-    from jax.experimental.pallas import tpu as pltpu
-
     from phlash_tpu.ops.kernel_dense import DenseKernel
-    from phlash_tpu.ops.kernel_smc import SMCKernel
-    from phlash_tpu.params import PSMCParams
-    from phlash_tpu.size_history import DemographicModel
+    from phlash_tpu.ops.smc_triton import TritonKernel
 
     rng = np.random.default_rng(3)
     data = rng.binomial(1, 0.05, size=(4, 64)).astype(np.int8)
-    warmup = rng.binomial(1, 0.05, size=(2, 32)).astype(np.int8)
-    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
-    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
-    B = 16
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), pp)
+    warmup = rng.binomial(1, 0.05, size=(2, 30)).astype(np.int8)  # pads to 32
+    pps = _f32_pps(16)
 
-    mesh = make_mesh(8)
-    kern = SMCKernel(M_=16, data=data, seg_len=32, mesh=mesh)
-    with pltpu.force_tpu_interpret_mode():
-        pis = jax.jit(kern.filter_batched)(pps, warmup)
+    kern = TritonKernel(M=16, data=data, mesh=make_mesh(8), interpret=True)
+    pis = jax.jit(kern.filter_batched)(pps, warmup)
 
     dense = DenseKernel(M=16, data=data, double_precision=True)
     want = dense.filter_batched(
         jax.tree.map(lambda a: a.astype(jnp.float64), pps), warmup
     )
     np.testing.assert_allclose(np.asarray(pis), np.asarray(want), rtol=1e-4, atol=1e-7)
-
-
-@pytest.mark.heavy  # another full step compile (~50 s; rebalanced from slow)
-def test_multislice_mesh_step_matches_unsharded(program):
-    """Pod layout: slices outermost on the particle axis (n_slices=2).
-
-    On virtual CPU devices the slice split is notional, but the resulting
-    mesh and shardings are exactly what a 2-slice pod would use; the step
-    must still reproduce the single-device result."""
-    mesh = make_mesh(8, particle_axis=4, n_slices=2)
-    assert mesh.devices.shape == (4, 2)
-    key = jax.random.PRNGKey(9)
-    want = jax.jit(program.step)(program.state, key)
-    program.kern.data = jax.device_put(program.kern.data, chunk_sharding(mesh))
-    place, jit_step = shard_training_step(program.step, mesh)
-    state = place(program.state)
-    got = jit_step(state)(state, key)
-    for a, b in zip(jax.tree.leaves(got.particles), jax.tree.leaves(want.particles)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=5e-5, atol=1e-7)

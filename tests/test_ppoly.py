@@ -70,7 +70,7 @@ def test_exp_integral_grad_finite(rng):
 def test_dtype_preserved_under_x64():
     """f32 polynomials stay f32 through antiderivative/exp_integral even with
     jax x64 enabled (a bare jnp.zeros is f64 and used to promote the whole
-    graph — software-emulated f64 on TPU; ~8 ms of a ~17 ms SVGD step)."""
+    graph to f64)."""
     import jax.numpy as jnp
 
     for dt in [jnp.float32, jnp.float64]:

@@ -46,7 +46,7 @@ def test_posterior_reproduction_quick():
     one simulated dataset, and compares the posterior clouds (cross-package
     TV of medians + mutual 95%-band coverage).  --quick here (smoke
     thresholds); the full-size run + thresholds are recorded in
-    docs/ROUND5.md and POSTERIOR_REPRO.json."""
+    POSTERIOR_REPRO.json."""
     tool = os.path.join(os.path.dirname(__file__), "..", "tools", "posterior_repro.py")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(

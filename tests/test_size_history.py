@@ -199,7 +199,7 @@ def test_from_demography_piecewise_extraction(monkeypatch):
 
 
 def test_afs_moments_dtype_preserved():
-    "etjj/etbl/mu must not promote an f32 history to f64 (TPU perf hazard)."
+    "etjj/etbl/mu must not promote an f32 history to f64."
     import jax.numpy as jnp
 
     for dt in [jnp.float32, jnp.float64]:

@@ -1,30 +1,24 @@
-"""Structured (VPU) Pallas kernel equivalence tests, interpret mode on CPU.
+"""Structured SMC' Triton kernel equivalence tests, interpret mode on CPU.
 
-Every test in this module shares ONE kernel configuration (seg_len=32,
-L=160, S=2, lane-padded B<=128 so pb=1): the module-level jitted
-forward/adjoint programs (ops.pallas_smc.forward_structured /
-backward_structured) are shape-keyed, so the expensive interpret-mode
-compile happens once per direction and every further test reuses it.
-Do not introduce new shapes here without need — a single odd shape adds
-~30 s of compile on one CPU core.
+Most tests share ONE kernel configuration (L=160, S=2, B=3 -> one
+program of BH=4 particles per chunk), so the interpret-mode programs
+compile once per direction and every further test reuses them.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 # cross-checks through model.log_density / vmap paths each compile several
-# more interpret-mode programs (~40-50 s apiece on one CPU core); the core
-# value/grad/filter equivalences above stay in the fast lane
+# more interpret-mode programs; the core value/grad/filter equivalences
+# stay in the fast lane
 CROSS = pytest.mark.slow
 
 from phlash_tpu.hmm import PureXLAKernel, psmc_ll
 from phlash_tpu.ops.kernel_dense import DenseKernel
-from phlash_tpu.ops.kernel_smc import SMCKernel
+from phlash_tpu.ops.smc_triton import TritonKernel
 
-SEG = 32
 L = 160
 
 
@@ -48,145 +42,136 @@ def f32_pp():
 
 @pytest.fixture(scope="module")
 def kern(sdata):
-    return SMCKernel(M_=16, data=sdata, seg_len=SEG)
+    return TritonKernel(M=16, data=sdata, interpret=True)
 
 
 @pytest.fixture(scope="module")
 def dkern(sdata):
-    return DenseKernel(M=16, data=sdata, seg_len=SEG)
+    return DenseKernel(M=16, data=sdata, seg_len=32)
 
 
-def test_instance_packing_occupancy(sdata, f32_pp):
-    """(particle x chunk) instances densely fill 128-lane tiles (VERDICT r02
-    weak item 2): at the production shape B=500, S=5 the r02 particle-split
-    layout left 63/128 lanes live per device on an 8-device mesh (~49%);
-    the instance packing must keep every tile full up to the global tail."""
-    from phlash_tpu.ops.kernel_smc import LANES
+def test_instance_packing_occupancy(sdata):
+    """(particle x chunk) instances fill the programs: at the production
+    shape B=500, S=5 no particle slot idles on one device, and 12 of 512
+    do when the particles split over the 8-device mesh."""
     from phlash_tpu.parallel import make_mesh
 
-    B, S = 500, 5
-    kern1 = SMCKernel(M_=16, data=sdata, seg_len=SEG)
-    layout, n_t, _ = kern1._layout(B, S)
-    assert layout == "aligned"  # free at this shape -> cheap per-tile decode
-    assert B * S / (n_t * LANES) >= 0.90  # 2500 / 2560 = 97.7%
+    B = 500
+    bh, nw, B_pad = TritonKernel(M=16, data=sdata).layout(B)
+    assert (bh, nw, B_pad) == (4, 1, 500)  # 125 programs per chunk
 
     mesh = make_mesh(8)
-    kern8 = SMCKernel(M_=16, data=sdata, seg_len=SEG, mesh=mesh)
-    _, n_t8, _ = kern8._layout(B, S)
-    assert n_t8 % mesh.devices.size == 0
-    occ = B * S / (n_t8 * LANES)
-    assert occ >= 0.80  # 2500 / 3072 = 81.4% (mesh-divisibility tail only)
-    assert occ > 0.60  # strictly better than the r02 63/128 layout
+    bh8, _, B_pad8 = TritonKernel(M=16, data=sdata, mesh=mesh).layout(B)
+    assert B_pad8 % (bh8 * mesh.devices.size) == 0  # whole programs per device
+    assert (bh8, B_pad8) == (4, 512)  # 63 -> 64 particles on each device
 
-    # shapes where aligned padding would cost extra tiles stay dense
-    layout_d, n_t_d, B_row_d = kern1._layout(100, 5)
-    assert layout_d == "dense" and n_t_d == 4 and B_row_d == 100
+    # tiny batches shrink the block to fit
+    assert TritonKernel(M=16, data=sdata).layout(3) == (4, 1, 4)
+    assert TritonKernel(M=16, data=sdata).layout(1) == (1, 1, 1)
 
 
 def test_instance_packing_roundtrip(sdata, f32_pp):
-    "Pack -> unpack is the identity, and each lane's shift selects its chunk."
-    from phlash_tpu.ops.kernel_smc import _unpack_ll, _unpack_state
+    "pack lays leaves out as (6, M, B_pad) / (S, M, B_pad) with identity padding."
+    from phlash_tpu.ops.smc_triton import _PAD_VALUES, _PARAM_ORDER
 
-    B, S = 5, 3  # deliberately lane-indivisible -> dense layout
-    kern1 = SMCKernel(M_=16, data=sdata, seg_len=SEG)
+    B, S = 5, 3
+    k = TritonKernel(M=16, data=sdata)
     rng = np.random.default_rng(7)
     pi = jnp.asarray(rng.random((B, S, 16)), dtype=jnp.float32)
-    pps = jax.tree.map(
-        lambda a: jnp.broadcast_to(a, (B, S) + a.shape), f32_pp
-    )._replace(pi=pi)
-    params, pi_p, shifts, B_out, B_row = kern1._pack_instances(pps, S)
-    assert B_out == B and B_row == B  # dense: stride is B itself
-    assert shifts.shape[-1] == 128  # per-lane chunk identities
-    # pi roundtrip through the state unpacker (same layout as alpha)
-    np.testing.assert_array_equal(
-        np.asarray(_unpack_state(pi_p, S, B, B_row)), np.asarray(pi)
-    )
-    # ll-row roundtrip: instance i = s * B + p
-    n_t = pi_p.shape[0]
-    row = jnp.arange(n_t * 128, dtype=jnp.float32).reshape(n_t, 128)
-    ll = np.asarray(_unpack_ll(row, S, B, B_row))
-    for p in range(B):
-        for s in range(S):
-            assert ll[p, s] == s * B + p
-    # shifts: lane i holds 2 x its chunk index; padding lanes shift 0
-    flat = np.asarray(shifts).reshape(-1)
-    want = np.zeros_like(flat)
-    want[: S * B] = 2 * np.repeat(np.arange(S), B)
-    np.testing.assert_array_equal(flat, want)
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), f32_pp)._replace(pi=pi)
+    th, pi_p, B_out, (bh, nw) = k.pack(pps, S)
+    assert B_out == B and (bh, nw) == (4, 1)
+    assert th.shape == (6, 16, 8) and pi_p.shape == (S, 16, 8)
+    np.testing.assert_array_equal(np.asarray(pi_p[:, :, :B].transpose(2, 0, 1)), np.asarray(pi))
+    for k_, (name, fill) in enumerate(zip(_PARAM_ORDER, _PAD_VALUES)):
+        np.testing.assert_array_equal(
+            np.asarray(th[k_, :, :B].T), np.asarray(getattr(f32_pp, name))[None].repeat(B, 0)
+        )
+        assert (np.asarray(th[k_, :, B:]) == fill).all(), name
+    assert np.allclose(np.asarray(pi_p[:, :, B:]), 1 / 16)
 
 
-def test_instance_packing_roundtrip_aligned(sdata, f32_pp):
-    "Aligned layout: chunk-uniform tiles, per-tile shifts, padded stride."
-    from phlash_tpu.ops.kernel_smc import LANES, _unpack_ll, _unpack_state
+def test_padding_particles_are_identity_hmms(sdata, f32_pp):
+    "Padded particle slots contribute exactly zero log-likelihood."
+    from phlash_tpu.ops.smc_triton import smc_op
 
-    B, S = 200, 2  # aligned (2 tiles/chunk) costs the same 4 tiles as dense
-    kern1 = SMCKernel(M_=16, data=sdata, seg_len=SEG)
-    layout, n_t, B_row = kern1._layout(B, S)
-    assert layout == "aligned" and B_row == 256 and n_t == 4
-    rng = np.random.default_rng(8)
-    pi = jnp.asarray(rng.random((B, S, 16)), dtype=jnp.float32)
-    pps = jax.tree.map(
-        lambda a: jnp.broadcast_to(a, (B, S) + a.shape), f32_pp
-    )._replace(pi=pi)
-    params, pi_p, shifts, B_out, B_row2 = kern1._pack_instances(pps, S)
-    assert (B_out, B_row2) == (B, B_row)
-    assert shifts.shape == (n_t, 1, 1)  # per-tile: cheap scalar-row decode
-    np.testing.assert_array_equal(
-        np.asarray(shifts).reshape(-1), 2 * (np.arange(n_t) // (B_row // LANES))
-    )
-    np.testing.assert_array_equal(
-        np.asarray(_unpack_state(pi_p, S, B, B_row)), np.asarray(pi)
-    )
-    # ll-row roundtrip: instance i = s * B_row + p, per-chunk padding dropped
-    row = jnp.arange(n_t * 128, dtype=jnp.float32).reshape(n_t, 128)
-    ll = np.asarray(_unpack_ll(row, S, B, B_row))
-    for s in range(S):
-        assert ll[0, s] == s * B_row
-        assert ll[B - 1, s] == s * B_row + B - 1
+    k = TritonKernel(M=16, data=sdata)
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (3, 2) + a.shape), f32_pp)
+    th, pi, B, (bh, nw) = k.pack(pps, 2)
+    rows = k._rows(jnp.asarray(sdata[:2]))
+    assert rows.shape == (2, L)  # 160 is already a multiple of NORM_EVERY
+    ll, alpha = smc_op(th, pi, rows, bh, nw, True)
+    assert (np.asarray(ll[:, B:]) == 0.0).all()
+    np.testing.assert_allclose(np.asarray(alpha[:, :, B:]), 1 / 16, rtol=1e-6)
+
+
+@pytest.mark.parametrize("block_h", [4, 32, 128])
+def test_block_shape_choice(monkeypatch, block_h):
+    "Blocks are powers of two, at most BLOCK_H particles, one warp per 32."
+    from phlash_tpu.ops import smc_triton
+
+    monkeypatch.setattr(smc_triton, "BLOCK_H", block_h)
+    for b_local in (1, 3, 17, 40, 100, 500):
+        bh, nw = smc_triton.block_shape(b_local)
+        assert bh & (bh - 1) == 0 and bh <= block_h  # a power of two
+        assert bh >= min(b_local, block_h)  # covers the batch or is full
+        assert nw == max(1, bh // 32)
+    assert smc_triton.block_shape(3) == (4, 1)
 
 
 def test_smc_values_match_oracle(sdata, kern, f32_pp):
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (2, 2) + a.shape), f32_pp)
-    with pltpu.force_tpu_interpret_mode():
-        ll = np.asarray(kern.loglik_batched(pps, jnp.array([0, 1])))
-    for s, i in enumerate([0, 1]):
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (3, 2) + a.shape), f32_pp)
+    ll = np.asarray(kern.loglik_batched(pps, jnp.array([0, 3])))
+    for s, i in enumerate([0, 3]):
         want = float(psmc_ll(f32_pp, jnp.asarray(sdata[i]))[1])
         np.testing.assert_allclose(ll[:, s], want, rtol=1e-5)
 
 
 def test_smc_values_missing_data(sdata, kern, f32_pp):
-    "Rows with missing blocks/tails (codes 2 and 3) against the scan oracle."
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (2, 2) + a.shape), f32_pp)
-    with pltpu.force_tpu_interpret_mode():
-        ll = np.asarray(kern.loglik_batched(pps, jnp.array([1, 2])))
+    "Rows with missing blocks/tails against the scan oracle."
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (3, 2) + a.shape), f32_pp)
+    ll = np.asarray(kern.loglik_batched(pps, jnp.array([1, 2])))
     for s, i in enumerate([1, 2]):
         want = float(psmc_ll(f32_pp, jnp.asarray(sdata[i]))[1])
         np.testing.assert_allclose(ll[:, s], want, rtol=1e-5)
 
 
-def test_smc_grads_match_dense(sdata, kern, dkern, f32_pp):
+def test_smc_grads_match_dense(sdata, kern, f32_pp):
+    from phlash_tpu.ops.check import assert_grads_match, dense_f64_value_and_grad
+
     B, S = 3, 2
     pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), f32_pp)
     inds = jnp.array([0, 1])
-    W = jnp.arange(1.0, B * S + 1).reshape(B, S)
+    W = jnp.arange(1.0, B * S + 1).reshape(B, S).astype(jnp.float32)
+    val, gp = jax.value_and_grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())(pps)
+    dval, gd = dense_f64_value_and_grad(sdata, pps, inds, W, seg_len=32)
+    np.testing.assert_allclose(float(val), float(dval), rtol=1e-5)
+    assert_grads_match(pps._fields, gp, gd)
 
-    with pltpu.force_tpu_interpret_mode():
-        gp = jax.grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())(pps)
-    gd = jax.grad(lambda p: (dkern.loglik_batched(p, inds) * W).sum())(pps)
-    for name, a, b in zip(pps._fields, gp, gd):
-        a, b = np.asarray(a), np.asarray(b)
-        if name != "pi":
-            a, b = a.sum(1), b.sum(1)
-        denom = np.abs(b).max() + 1e-12
-        np.testing.assert_allclose(a / denom, b / denom, atol=2e-5, err_msg=name)
+
+def test_smc_deepest_interval_grads(sdata, kern, f32_pp):
+    """The strict suffix sums run from the deep end, so the deepest
+    intervals' gradients keep full relative accuracy: each interval is
+    compared at its own scale, not the leaf's maximum."""
+    from phlash_tpu.ops.check import dense_f64_value_and_grad
+
+    B, S = 3, 2
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), f32_pp)
+    inds = jnp.array([0, 1])
+    W = jnp.arange(1.0, B * S + 1).reshape(B, S).astype(jnp.float32)
+    gp = jax.grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())(pps)
+    _, gd = dense_f64_value_and_grad(sdata, pps, inds, W, seg_len=32)
+    for name in ("b", "d", "v", "emis0", "emis1"):
+        a = np.asarray(getattr(gp, name), np.float64).sum(1)[:, -4:]
+        b = np.asarray(getattr(gd, name), np.float64).sum(1)[:, -4:]
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-12 * np.abs(b).max(), err_msg=name)
 
 
 def test_smc_filter_matches_oracle(sdata, kern, f32_pp):
-    B = 2
+    B = 3
     pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), f32_pp)
     warmup = jnp.asarray(sdata[:2])  # full-length rows: reuses the fwd compile
-    with pltpu.force_tpu_interpret_mode():
-        alpha = np.asarray(kern.filter_batched(pps, warmup))
+    alpha = np.asarray(kern.filter_batched(pps, warmup))
     assert alpha.shape == (B, 2, 16)
     for s in range(2):
         want = np.asarray(psmc_ll(f32_pp, warmup[s])[0])
@@ -195,18 +180,17 @@ def test_smc_filter_matches_oracle(sdata, kern, f32_pp):
 
 
 def test_smc_filter_grad_matches_xla(sdata, kern, f32_pp):
-    "Differentiating through the Pallas filter must match the XLA scan filter."
+    "Differentiating through the triton filter must match the XLA scan filter."
     xkern = PureXLAKernel(M=16, data=sdata)
-    B = 2
+    B = 3
     pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), f32_pp)
     warmup = jnp.asarray(sdata[:2])
-    T = jnp.linspace(0.5, 1.5, 2 * 2 * 16).reshape(2, 2, 16)
+    T = jnp.linspace(0.5, 1.5, B * 2 * 16).reshape(B, 2, 16)
 
     def loss(kern_):
         return lambda p: (kern_.filter_batched(p, warmup) * T).sum()
 
-    with pltpu.force_tpu_interpret_mode():
-        gp = jax.grad(loss(kern))(pps)
+    gp = jax.grad(loss(kern))(pps)
     gx = jax.grad(loss(xkern))(pps)
     for name, a, b in zip(pps._fields, gp, gx):
         a, b = np.asarray(a), np.asarray(b)
@@ -214,12 +198,12 @@ def test_smc_filter_grad_matches_xla(sdata, kern, f32_pp):
         np.testing.assert_allclose(a / denom, b / denom, atol=2e-5, err_msg=name)
 
 
-@pytest.mark.heavy  # ~80 s; rebalanced from slow (r4 weak item 5)
+@pytest.mark.heavy  # ~80 s; dense backend only
 def test_log_density_batched_matches_per_particle(sdata, mcp):
     "log_density_batched == vmap(log_density) on the dense backend."
     from phlash_tpu.model import log_density, log_density_batched
 
-    kern64 = DenseKernel(M=16, data=sdata, double_precision=True, seg_len=SEG)
+    kern64 = DenseKernel(M=16, data=sdata, double_precision=True, seg_len=32)
     B = 3
     key = jax.random.PRNGKey(0)
     flat, unravel = jax.flatten_util.ravel_pytree(mcp)
@@ -244,14 +228,12 @@ def test_log_density_batched_matches_per_particle(sdata, mcp):
 @CROSS
 def test_vmap_loglik_structured_matches_dense(sdata, kern, dkern, f32_pp):
     """vmap(kern.loglik) over particles — the per-particle log_density path
-    (model.py:61) — must work and agree with the dense backend when the
-    kernel is the structured Pallas one (VERDICT r01 weak item 8)."""
+    (model.py:61) — must work and agree with the dense backend."""
     B = 2
     pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), f32_pp)
     inds = jnp.array([0, 1])
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.vmap(kern.loglik, (0, None))(pps, inds[0])
-        got2 = jax.vmap(jax.vmap(kern.loglik, (None, 0)), (0, None))(pps, inds)
+    got = jax.vmap(kern.loglik, (0, None))(pps, inds[0])
+    got2 = jax.vmap(jax.vmap(kern.loglik, (None, 0)), (0, None))(pps, inds)
     want = jax.vmap(dkern.loglik, (0, None))(pps, inds[0])
     want2 = jax.vmap(jax.vmap(dkern.loglik, (None, 0)), (0, None))(pps, inds)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5)
@@ -260,7 +242,7 @@ def test_vmap_loglik_structured_matches_dense(sdata, kern, dkern, f32_pp):
 
 @CROSS
 def test_log_density_structured_kernel_per_particle(sdata, kern, dkern, mcp):
-    "log_density (per-particle vmap path) with the structured kernel == dense."
+    "log_density (per-particle vmap path) with the triton kernel == dense."
     from phlash_tpu.model import log_density
 
     kw = dict(
@@ -270,125 +252,82 @@ def test_log_density_structured_kernel_per_particle(sdata, kern, dkern, mcp):
         afs=jnp.array([30, 10, 5], dtype=jnp.int64),
         afs_transform=None,
     )
-    with pltpu.force_tpu_interpret_mode():
-        got = log_density(mcp, kern=kern, **kw)
+    got = log_density(mcp, kern=kern, **kw)
     want = log_density(mcp, kern=dkern, **kw)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_m_policy_unsupported_raises(sdata):
-    """M outside the power-of-two sublane set fails loudly in SMCKernel and
-    falls back to the dense backend through get_kernel (the documented
-    policy where the reference only warns, gpu.py:128-137)."""
-    from phlash_tpu.kernel import get_kernel
-    from phlash_tpu.ops.kernel_dense import DenseKernel as DK
+    """M outside SUPPORTED_M fails loudly, in the kernel and through
+    get_kernel with the backend named: no silent fallback to dense."""
+    from phlash_tpu.kernel import default_backend, get_kernel
 
     with pytest.raises(ValueError, match="supports M in"):
-        SMCKernel(M_=24, data=sdata, seg_len=SEG)
-    kern = get_kernel(M=24, data=sdata, backend="pallas")
-    assert isinstance(kern, DK)
+        TritonKernel(M=24, data=sdata)
+    with pytest.raises(ValueError, match="supports M in"):
+        get_kernel(M=24, data=sdata, backend="triton")
+    with pytest.raises(ValueError, match="float32-only"):
+        get_kernel(M=16, data=sdata, backend="triton", double_precision=True)
+    assert default_backend(24) == "dense"
 
 
-@pytest.mark.heavy  # 3 extra shapes x (fwd + adjoint) interpret compiles (~6 min)
-@pytest.mark.parametrize("m,pattern", [(32, "32*1"), (8, "8*1"), (64, "64*1")])
-def test_smc_m_generality(sdata, m, pattern):
-    """The structured kernel at M=8, M=32 and M=64 (every non-default entry
-    of the power-of-two sublane
-    block, ops/pallas_smc.SUPPORTED_M): forward values against the scan
-    oracle, full adjoint against the dense backend.  The reference compiles
-    any M into its CUDA kernel (gpu.py:131-137); this is the TPU
-    counterpart evidence beyond the tuned M=16."""
+def _m_setup(sdata, m):
     from phlash_tpu.params import PSMCParams
     from phlash_tpu.size_history import DemographicModel
 
-    dm = DemographicModel.default(pattern=pattern, theta=1e-2, rho=1e-2)
+    dm = DemographicModel.default(pattern=f"{m}*1", theta=1e-2, rho=1e-2)
     pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
-    assert pp.b.shape[0] == m
-    kern = SMCKernel(M_=m, data=sdata, seg_len=SEG)
-    dkern = DenseKernel(M=m, data=sdata, seg_len=SEG)
+    data = sdata[:, 40:64]  # 24 sites: three rescaling periods
+    B, S = 2, 2
+    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), pp)
+    return pp, pps, data, TritonKernel(M=m, data=data, interpret=True)
+
+
+@pytest.mark.parametrize("m", [8, 32, 64])
+def test_smc_m_generality(sdata, m):
+    """The kernel at every non-default M of SUPPORTED_M, at a tiny length:
+    forward values against the scan oracle, the full adjoint against the
+    f64 dense backend."""
+    from phlash_tpu.ops.check import assert_grads_match, dense_f64_value_and_grad
+    from phlash_tpu.params import PSMCParams
+    from phlash_tpu.size_history import DemographicModel
+
+    dm = DemographicModel.default(pattern=f"{m}*1", theta=1e-2, rho=1e-2)
+    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
+    data = sdata[:, 40:64]  # 24 sites: three rescaling periods
+    kern = TritonKernel(M=m, data=data, interpret=True)
     B, S = 2, 2
     pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), pp)
     inds = jnp.array([0, 1])
-
-    with pltpu.force_tpu_interpret_mode():
-        ll = np.asarray(kern.loglik_batched(pps, inds))
-    for s, i in enumerate([0, 1]):
-        want = float(psmc_ll(pp, jnp.asarray(sdata[i]))[1])
-        np.testing.assert_allclose(ll[:, s], want, rtol=1e-5)
-
-    W = jnp.arange(1.0, B * S + 1).reshape(B, S)
-    with pltpu.force_tpu_interpret_mode():
-        gp = jax.grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())(pps)
-    gd = jax.grad(lambda p: (dkern.loglik_batched(p, inds) * W).sum())(pps)
-    for name, a, b in zip(pps._fields, gp, gd):
-        a, b = np.asarray(a), np.asarray(b)
-        if name != "pi":
-            a, b = a.sum(1), b.sum(1)
-        denom = np.abs(b).max() + 1e-12
-        np.testing.assert_allclose(
-            a / denom, b / denom, atol=2e-5, err_msg=f"M={m} {name}"
-        )
-
-
-@pytest.mark.heavy  # second interpret-mode fwd+adjoint compile (~2 min);
-# the heavy lane runs in CI on every push (.github/workflows/test.yml)
-def test_pipeline_v2_schedule_matches_default(sdata, monkeypatch):
-    """PHLASH_TPU_PIPELINE_V2 (the r5 cross-site pipelining experiment,
-    docs/DESIGN.md "Roofline") is a pure schedule change: interleaved scan
-    rounds + hoisted/deduplicated decodes.  Values and gradients must match
-    the default schedule exactly (same op set, same per-chain order).  The
-    flag is read at trace time, so the jit caches are cleared between the
-    two traces."""
-    import jax
-
-    from phlash_tpu.ops import pallas_smc
-    from phlash_tpu.params import PSMCParams
-    from phlash_tpu.size_history import DemographicModel
-
-    dm = DemographicModel.default(pattern="16*1", theta=1e-2, rho=1e-2)
-    pp = jax.tree.map(lambda a: a.astype(jnp.float32), PSMCParams.from_dm(dm))
-    B, S = 4, 2
-    pps = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, S) + a.shape), pp)
-    inds = jnp.array([0, 1])
     W = jnp.arange(1.0, B * S + 1).reshape(B, S).astype(jnp.float32)
-    kern = SMCKernel(M_=16, data=sdata, seg_len=SEG)
-
-    def vg():
-        with pltpu.force_tpu_interpret_mode():
-            return jax.value_and_grad(
-                lambda p: (kern.loglik_batched(p, inds) * W).sum()
-            )(pps)
-
-    assert not pallas_smc.PIPELINE_V2  # default off
-    v0, g0 = vg()
-    jax.clear_caches()  # the flag is read at trace time
-    monkeypatch.setattr(pallas_smc, "PIPELINE_V2", True)
-    v1, g1 = vg()
-    np.testing.assert_allclose(float(v1), float(v0), rtol=1e-6)
-    for name, a, b in zip(pps._fields, g1, g0):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-8, err_msg=name
-        )
-    jax.clear_caches()  # don't leak v2-traced graphs to later tests
+    val, gp = jax.value_and_grad(lambda p: (kern.loglik_batched(p, inds) * W).sum())(pps)
+    want = sum(
+        float(W[:, s].sum()) * float(psmc_ll(pp, jnp.asarray(data[s]))[1]) for s in range(S)
+    )
+    np.testing.assert_allclose(float(val), want, rtol=1e-5)
+    _, gd = dense_f64_value_and_grad(data, pps, inds, W, seg_len=8)
+    assert_grads_match(pps._fields, gp, gd)
 
 
-def test_tile_block_respects_vmem_budget():
-    """Tile-block choice scales down with M so the backward's scratch +
-    double-buffered streamed blocks stay inside Mosaic's 16 MiB scoped-VMEM
-    stack (M=64 x tb=4 at the production shape was observed to fail AT
-    COMPILE TIME with 17.44M > 16.00M; regression for that report)."""
-    from phlash_tpu.ops.pallas_smc import NORM_EVERY, _VMEM_TB_BUDGET, _pick_tb_vmem
+@pytest.mark.parametrize("m", [8, 16, 32, 64])
+def test_kernel_lowers_to_triton(m):
+    """Forward and adjoint lower to Triton IR for the GPU at each supported
+    M (the lowering runs here; only the GPU compiles the IR)."""
+    from phlash_tpu.ops.smc_triton import smc_op
 
-    n_per = 256 // NORM_EVERY  # production seg_len
-    bwd = dict(scratch_rows=1 + 4 * NORM_EVERY + n_per,
-               stream_rows=2 * n_per, io_rows=30)
-    # production M=16/M=32 keep the measured-optimal tb=4
-    assert _pick_tb_vmem(20, 4, 16, **bwd) == 4
-    assert _pick_tb_vmem(20, 4, 32, **bwd) == 4
-    # M=64 must drop to tb=2 (tb=4 exceeds the scoped limit on hardware)
-    assert _pick_tb_vmem(20, 4, 64, **bwd) == 2
-    # the estimate at the chosen M=64 block stays under budget
-    est = 2 * 64 * 128 * 4 * (bwd["scratch_rows"] + bwd["stream_rows"] + 30)
-    assert est <= _VMEM_TB_BUDGET
-    # divisibility still wins: n_t=5 can only take tb=1
-    assert _pick_tb_vmem(5, 4, 16, **bwd) == 1
+    S, B_pad, L_pad = 2, 32, 64
+    th = jax.ShapeDtypeStruct((6, m, B_pad), jnp.float32)
+    pi = jax.ShapeDtypeStruct((S, m, B_pad), jnp.float32)
+    obs = jax.ShapeDtypeStruct((S, L_pad), jnp.int8)
+
+    def loss(th, pi, obs):
+        ll, alpha = smc_op(th, pi, obs, 32, 1, False)
+        return ll.sum() + alpha.sum()
+
+    text = (
+        jax.jit(jax.grad(loss, argnums=(0, 1)))
+        .trace(th, pi, obs)
+        .lower(lowering_platforms=("cuda",))
+        .as_text()
+    )
+    assert text.count("xla.gpu.triton") == 2  # forward with residuals + adjoint

@@ -55,13 +55,12 @@ def test_svgd_pytree_particles():
     assert abs(float(state.particles["b"].mean()) - 1.0) < 0.3
 
 
-def test_offdiag_median_select_bit_identical_to_sort():
-    """The TPU fast path's exact bitwise order-statistic selection must be
-    bit-identical to the sort-based strict-lower-triangle median on every
-    cloud shape, including heavy ties and fully-coincident particles (the
-    production gate only enables it on TPU; the algorithm is backend-
-    agnostic, so it is pinned here on CPU)."""
-    from phlash_tpu.svgd import _offdiag_median_select
+def test_median_bandwidth_is_strict_lower_triangle_median():
+    """The sort over the diagonal-masked full matrix must give exactly the
+    strict-lower-triangle median (blackjax's convention) on every cloud
+    shape, including heavy ties and fully-coincident particles (where the
+    1e-12 floor applies)."""
+    from phlash_tpu.svgd import median_bandwidth
 
     for trial in range(6):
         rng = np.random.default_rng(trial)
@@ -73,9 +72,10 @@ def test_offdiag_median_select_bit_identical_to_sort():
         if trial == 5:
             x[:] = 0.0  # all particles coincide -> median 0
         P = x.shape[0]
-        d = np.sqrt(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)).astype(np.float32)
-        sel = float(_offdiag_median_select(jnp.asarray(d), P))
-        tri = np.sort(d[np.tril_indices(P, k=-1)])
+        sq = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1).astype(np.float32)
+        h = float(median_bandwidth(jnp.asarray(sq), P))
+        tri = np.sort(np.sqrt(sq)[np.tril_indices(P, k=-1)])
         m = len(tri)
-        want = np.float32(0.5 * (np.float32(tri[(m - 1) // 2]) + np.float32(tri[m // 2])))
-        assert np.float32(sel).tobytes() == want.tobytes(), (trial, sel, want)
+        med = np.float32(0.5 * (np.float32(tri[(m - 1) // 2]) + np.float32(tri[m // 2])))
+        want = max(float(np.float32(med * med) / np.float32(np.log(P))), 1e-12)
+        np.testing.assert_allclose(h, want, rtol=1e-6, err_msg=str(trial))

@@ -10,10 +10,8 @@ from phlash_tpu.training import build_training
 def test_f32_step_graph_has_no_tensor_f64():
     """The default (f32-parameter) training step's traced graph must contain
     no non-scalar float64 intermediate: under the global x64 policy one bare
-    jnp.zeros/jnp.array silently promotes a subgraph to f64, which is
-    software-emulated on TPU (the AFS term once lost ~8 ms/step this way —
-    tools/step_profile.py).  Scalar f64s from optax/random internals are
-    tolerated."""
+    jnp.zeros/jnp.array silently promotes a subgraph to f64.  Scalar f64s
+    from optax/random internals are tolerated."""
     import jax
     import jax.numpy as jnp
 
@@ -92,7 +90,7 @@ def test_steps_per_call_default_resolution(monkeypatch):
     assert build(niter=20).steps_per_call == 1  # CPU default
 
     class FakeDev:
-        platform = "tpu"
+        platform = "gpu"
 
     monkeypatch.setattr("phlash_tpu.training.jax.devices", lambda: [FakeDev()])
     assert build(niter=20).steps_per_call == 10  # accelerator default

@@ -5,7 +5,7 @@ density gradient under every (assembly dtype) x (kernel backend) combo:
 
     dense64   dense XLA kernel, f64 state   (reference gradient)
     dense32   dense XLA kernel, f32 state
-    pallas    production Pallas kernel (f32)
+    prod      the platform's production kernel (f32)
 
 x assembly f64 / f32.  For each combo vs the (f64, dense64) reference:
 
@@ -15,7 +15,7 @@ x assembly f64 / f32.  For each combo vs the (f64, dense64) reference:
   averages gradients over particles, so unbiased noise washes out while a
   systematic bias steers the whole cloud.
 
-Run on TPU:  python tools/f32_combo.py
+Run on the accelerator:  python tools/f32_combo.py
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def main():
     kerns = dict(
         dense64=get_kernel(M=16, data=data_host, backend="dense", double_precision=True),
         dense32=get_kernel(M=16, data=data_host, backend="dense", double_precision=False),
-        pallas=prog.kern,
+        prod=prog.kern,
     )
 
     def grad_fn(kern):

@@ -15,7 +15,7 @@ If C degrades and D recovers -> the gradient path is the culprit (somewhere
 later in parameter space than the init).  If D degrades and C is fine ->
 the f32 SVGD/optimizer dynamics (or the f32 initial draw realization) are.
 
-Run on TPU:  python tools/f32_dynamics.py [--niter N] [--L L]
+Run on the accelerator:  python tools/f32_dynamics.py [--niter N] [--L L]
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Drill into the f32 assembly-VJP error, stage by stage (CPU, no TPU).
+"""Drill into the f32 assembly-VJP error, stage by stage (CPU only).
 
 tools/f32_combo.py showed the f32 parameter-assembly VJP is wrong by 1-2
 orders of magnitude (and biased) in the production regime regardless of

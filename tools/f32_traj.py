@@ -9,7 +9,7 @@ f64 one at the same (cast-down) cloud: per-leaf max relative error,
 non-finite density counts, and the coordinates of the worst particle once
 the error crosses a threshold.
 
-Run on TPU:  python tools/f32_traj.py [--niter N]
+Run on the accelerator:  python tools/f32_traj.py [--niter N]
 """
 
 from __future__ import annotations

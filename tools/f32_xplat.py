@@ -1,12 +1,12 @@
-"""Compare the f32 assembly VJP computed on TPU vs CPU, identical inputs.
+"""Compare the f32 assembly VJP computed on the accelerator vs CPU, identical inputs.
 
-tools/f32_stage.py (CPU) finds the f32 assembly VJP accurate to ~1e-2,
-while tools/f32_combo.py (TPU) finds it wrong by 10-100x — so the defect
-appears to be TPU-specific f32 arithmetic somewhere in the assembly graph.
-This script runs in ONE process on the TPU backend, computes the reference
-cotangent pullback on the CPU fallback device (f64 and f32), then the same
-pullback on the TPU (f64-emulated and f32), and reports per-particle
-relative errors of each against CPU/f64.
+An accelerator whose f32 arithmetic (transcendentals, matmul precision)
+is less accurate than the CPU's shows up here as a larger f32 assembly-VJP
+error on the device than on the host.  This script runs in ONE process on
+the accelerator backend, computes the reference cotangent pullback on the
+CPU device (f64 and f32), then the same pullback on the accelerator (f64
+and f32), and reports per-particle relative errors of each against
+CPU/f64.
 
 Run:  python tools/f32_xplat.py
 """
@@ -37,8 +37,8 @@ def cast(tree, dt):
 
 def main():
     cpu = jax.devices("cpu")[0]
-    tpu = jax.devices()[0]
-    print("devices:", cpu, tpu)
+    acc = jax.devices()[0]
+    print("devices:", cpu, acc)
 
     from phlash_tpu.mcmc import init_mcmc_data
 
@@ -89,7 +89,7 @@ def main():
     w_host = jax.tree.map(np.asarray, w_pp)
 
     outs = {}
-    for plat, dev in (("cpu", cpu), ("tpu", tpu)):
+    for plat, dev in (("cpu", cpu), (acc.platform, acc)):
         for dt in (jnp.float64, jnp.float32):
             with jax.default_device(dev):
                 g = jax.jit(pullback(dt))(

@@ -1,4 +1,4 @@
-"""Posterior-recovery validation on simulated demographies (run on TPU).
+"""Posterior-recovery validation on simulated demographies (run on the GPU).
 
 For each test demography, simulates chromosome-scale data from the exact
 SMC' generative model, fits the posterior with default-scale settings
